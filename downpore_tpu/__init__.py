@@ -15,9 +15,9 @@ if not _os.environ.get("DOWNPORE_NO_MALLOPT"):
         _libc.mallopt(-1, 1 << 30)    # M_TRIM_THRESHOLD = never
     except Exception:
         pass
-"""downpore_tpu — a TPU-native long-read sequence-analysis engine.
+"""downpore_tpu — a JAX long-read sequence-analysis engine.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of the
+A from-scratch JAX/XLA framework with the capabilities of the
 reference Go toolkit jteutenberg/downpore: adapter trimming and
 demultiplexing, seed-chain read mapping, all-vs-all overlap detection and
 pileup/consensus correction for nanopore long reads.
@@ -27,13 +27,13 @@ Design (see SURVEY.md for the reference analysis):
 * Reads are 2-bit encoded into fixed-shape padded batches on the host
   (``downpore_tpu.core``), streamed by ``downpore_tpu.io``.
 * The gapped-seed representation and seed index live in
-  ``downpore_tpu.seeds``; candidate retrieval is an int8 matmul on the MXU
-  rather than the reference's bitset soft-union
+  ``downpore_tpu.seeds``; candidate retrieval is an int8 matmul or a
+  gather-sum over a seed-membership matrix on device rather than the reference's bitset soft-union
   (ref: util/bitset.go:308, seeds/seeds.go:335).
 * In-order seed chaining is a batched anchor DP on device
   (``downpore_tpu.ops.chain``), replacing the reference's greedy
   per-read chain walk (ref: seeds/sequence.go:401).
-* The banded multi-sequence DTW consensus is a Pallas VPU kernel
+* The banded multi-sequence DTW consensus is a vmapped beam scan in XLA
   (``downpore_tpu.ops.dtw``), replacing the hand-written amd64 band
   update (ref: sequence/alignment/asm_amd64.s:17).
 * Multi-chip scaling is data-parallel over reads with the seed index

@@ -15,7 +15,7 @@ sequence/alignment/alignment.go:357-386):
 
 Out-of-range predecessors count as 0xFFFF.  ``update_offsets_np`` is the
 scalar-shape oracle; ``update_bands`` is the batched jnp version operating
-on ``[..., W]`` bands at once — on TPU one fused VPU pass updates every
+on ``[..., W]`` bands at once — one fused elementwise pass updates every
 (state x successor x sequence) band of the beam simultaneously.
 """
 from __future__ import annotations

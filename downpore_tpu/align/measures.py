@@ -2,8 +2,8 @@
 
 Every reference measure — position-weighted XOR (simpleMeasure), 1-2 base
 edit detection (editDistance), confusion matrices (matrixDistance) and the
-nanopore current model — is a function of a k-mer pair, so on TPU they all
-become one dense ``[4^k, 4^k]`` distance table built once and gathered per
+nanopore current model — is a function of a k-mer pair, so on device they
+all become one dense ``[4^k, 4^k]`` distance table built once and gathered per
 band position (ref: sequence/alignment/measures.go, model/model.go).  The
 table construction below vectorizes the reference's bit tricks over whole
 axes; the Measure classes keep the reference's host API (Distances with

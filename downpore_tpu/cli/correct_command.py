@@ -119,7 +119,7 @@ class CorrectCommand(Command):
              "Run base-space consensus on the device beam engine "
              "(bulk vmapped dispatches; offsets stay approximate; "
              "parity-validated vs the host landmark engine — "
-             "false falls back to the faithful host beam)",
+             "false runs the faithful host beam)",
              "Shard query batches across all attached devices "
              "(jax.sharding data mesh; the chunk index replicates)"])
 
@@ -204,21 +204,14 @@ class CorrectCommand(Command):
             print("Preparing base-space consensus of all query results.",
                   file=sys.stderr)
             consensus_seqs = []
-            use_device = parse_bool(args["device_consensus"])
-            if use_device:
+            if parse_bool(args["device_consensus"]):
                 from ..consensus import build_consensus_bulk
                 flat = [c for contigs in seed_consensus for c in contigs
                         if c is not None]
-                try:
-                    for _, cons in build_consensus_bulk(flat, all_seq, mod):
-                        if cons is not None:
-                            consensus_seqs.append(cons)
-                except Exception as e:
-                    print(f"Device consensus failed ({e}); falling back "
-                          "to the host engine.", file=sys.stderr)
-                    use_device = False
-                    consensus_seqs = []
-            if not use_device:
+                for _, cons in build_consensus_bulk(flat, all_seq, mod):
+                    if cons is not None:
+                        consensus_seqs.append(cons)
+            else:
                 for contigs in seed_consensus:
                     for contig in contigs:
                         if contig is None:

@@ -23,9 +23,9 @@ class OverlapCommand(Command):
              "Number of bases in each seed",
              "Minimum number of seeds to generate for each overlap query",
              "Maximum total unique seeds to use in each query batch "
-             "(the reference defaults to 10000 to bound host RAM; TPU "
-             "HBM affords 10x, so the default here is 100000 — fewer, "
-             "bigger rounds mean fewer whole-file re-index passes)",
+             "(the reference defaults to 10000 to bound host RAM; the "
+             "default here is 100000 — fewer, bigger rounds mean fewer "
+             "whole-file re-index passes)",
              "Size to chop long reads into for querying against, in bases",
              "Maximum number of queries per batch (if max seeds not reached)",
              "Minimum proportion of seeds that must match each query",

@@ -19,7 +19,7 @@ def build_consensus(contig: SeedContig, sequences, model=None,
     id/offsets when one part is the query itself), or (None, None).
 
     ``engine="host"`` runs the faithful landmark beam (align.dtw);
-    ``engine="device"`` runs the fixed-beam TPU engine (ops.dtw) — faster
+    ``engine="device"`` runs the fixed-beam device engine (ops.dtw) — faster
     in bulk, no per-sequence positions, so contig offsets are left
     approximate."""
     k = 5

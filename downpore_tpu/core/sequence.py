@@ -3,7 +3,7 @@
 Host-side representation is a numpy ``uint8`` array of 2-bit base codes
 (A=0, C=1, G=2, T=3) — one code per base.  This is the analogue of the
 reference's ``byteSequence``/``packedSequence`` pair
-(ref: sequence/sequence.go:31-53); on TPU there is no reason to bit-pack on
+(ref: sequence/sequence.go:31-53); there is no reason to bit-pack on
 the host because device transfers ship whole ``uint8`` lanes and the scan
 kernels operate on unpacked codes.  All per-base loops are vectorized numpy
 (the role the reference gives its SSSE3/BSWAP assembly in

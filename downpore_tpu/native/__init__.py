@@ -26,14 +26,15 @@ def _source_path() -> str:
 
 
 def _lib_path() -> str:
-    """Library path keyed by a hash of the SOURCE: two checkouts (e.g. a
-    bench worktree of an older commit) previously shared one /tmp path,
-    and whichever built last silently served the other a stale binary
+    """Library path inside the checkout (``native/.build/``), keyed by a
+    hash of the source so an edited source never loads a stale binary
     with missing symbols (-> numpy fallback)."""
     import hashlib
-    with open(_source_path(), "rb") as f:
+    src = _source_path()
+    with open(src, "rb") as f:
         tag = hashlib.sha256(f.read()).hexdigest()[:16]
-    return os.path.join("/tmp", f"downpore_tpu_seqscan_{tag}.so")
+    return os.path.join(os.path.dirname(src), ".build",
+                        f"seqscan_{tag}.so")
 
 
 def load() -> Optional[ctypes.CDLL]:
@@ -48,10 +49,15 @@ def load() -> Optional[ctypes.CDLL]:
     try:
         if (not os.path.exists(lib)
                 or os.path.getmtime(lib) < os.path.getmtime(src)):
+            os.makedirs(os.path.dirname(lib), exist_ok=True)
+            # build under a private name and rename: concurrent test
+            # workers may build at once
+            tmp = f"{lib}.{os.getpid()}.tmp"
             subprocess.run(
                 ["g++", "-O3", "-march=native", "-shared", "-fPIC",
-                 "-pthread", src, "-o", lib],
+                 "-pthread", src, "-o", tmp],
                 check=True, capture_output=True, timeout=120)
+            os.replace(tmp, lib)
         L = ctypes.CDLL(lib)
         # all pointer args are c_void_p and call sites pass the raw
         # ``arr.ctypes.data`` integer: data_as(POINTER(...)) casts cost

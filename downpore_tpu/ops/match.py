@@ -1,14 +1,14 @@
-"""Candidate retrieval: seed-hit counting as an integer matmul on the MXU.
+"""Candidate retrieval: seed-hit counting as an integer matmul.
 
 The reference answers "which indexed chunks share >= hitFraction of the
 query's seeds" with a per-word bitset soft-union cascade in hand-written
-SIMD (ref: util/bitset.go:308-411, util/asm_amd64.s:121-509).  On TPU the
-natural formulation is dense linear algebra: with the inverted index as a
+SIMD (ref: util/bitset.go:308-411, util/asm_amd64.s:121-509).  On an
+accelerator the natural formulation is dense linear algebra: with the inverted index as a
 0/1 membership matrix ``M[num_seeds, num_chunks]`` and a batch of queries
 as multiplicity vectors ``V[num_queries, num_seeds]`` (one count per run
 of each seed, consecutive duplicates collapsed, exactly the multiset the
 reference feeds GetSharedIDs), the shared-seed counts are ``V @ M`` — one
-int8 matmul that the MXU executes at speed of light, replacing both the
+int8 matmul with int32 accumulation, replacing both the
 soft-union candidate retrieval and the per-candidate popcount gate
 (ref: util/bitset.go:179, overlap/overlap.go:359).
 
@@ -30,8 +30,7 @@ def hit_counts_packed(packed: jax.Array, membership: jax.Array) -> jax.Array:
     """``[Q, S//8] uint8 (bit-packed rows) x [S, C] -> [Q, C]`` counts.
 
     The query matrix ships to the device bit-packed (8x smaller host->device
-    transfer — decisive when the host link is slow) and unpacks on device
-    with shift/mask before the MXU matmul."""
+    transfer) and unpacks on device with shift/mask before the matmul."""
     Q, SB = packed.shape
     bits = jnp.right_shift(packed[:, :, None],
                            jnp.arange(7, -1, -1, dtype=jnp.uint8)) & 1
@@ -102,7 +101,7 @@ def hash_ids(ids: np.ndarray, num_seeds: int, H: int) -> np.ndarray:
 def build_membership(chunk_seed_lists, num_seeds: int,
                      H: Optional[int] = None) -> np.ndarray:
     """Hashed 0/1 membership matrix ``[H, C]`` int8 from per-chunk seed-id
-    lists — the inverted index in MXU-ready form."""
+    lists — the inverted index in matmul form."""
     if H is None:
         H = choose_hash_size(num_seeds)
     C = len(chunk_seed_lists)

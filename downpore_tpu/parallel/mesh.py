@@ -9,7 +9,8 @@ with XLA collectives merging partial hit counts — the merge points
 identified in SURVEY.md §2.3.
 
 * retrieval: ``V [Q, H] @ M [H, C]``; V sharded (data, seed), M sharded
-  (seed, None) -> partial counts psum over the seed axis ride the ICI.
+  (seed, None) -> partial counts psum over the seed axis (NVLink, all
+  to all, between the cards of one host).
 * chaining: pair batches sharded over ``data`` only (embarrassingly
   parallel DP).
 * k-mer histograms: per-shard bincount + psum (ref analogue:

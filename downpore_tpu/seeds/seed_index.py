@@ -4,7 +4,7 @@ The reference keeps one bitset per seed listing the chunks that contain it
 and answers queries with a soft-union popcount cascade
 (ref: seeds/seeds.go:11-21, util/bitset.go:308).  Here the inverted index
 is a dense seed-membership matrix so that candidate retrieval becomes an
-integer matmul on the MXU (``downpore_tpu.ops.match``); this module holds
+integer matmul on the device (``downpore_tpu.ops.match``); this module holds
 the host-side tables (k-mer -> seed id maps, per-chunk seed lists) and the
 numpy oracle for ``matches``.
 """
@@ -338,7 +338,7 @@ class SeedIndex:
 
     def matches(self, query: SeedSequence, hit_fraction: float) -> np.ndarray:
         """Chunks sharing at least ``hit_fraction`` of the query's usable
-        seeds; numpy oracle for the MXU matmul path
+        seeds; numpy oracle for the device matmul path
         (ref: seeds/seeds.go:335, util/bitset.go:308)."""
         v = self.query_seed_multiplicity(query)
         num_sets = int(v.sum())

@@ -1,8 +1,8 @@
 // Native host-side sequence kernels for downpore_tpu.
 //
 // The reference implements its host hot loops in hand-written amd64
-// assembly (ref: sequence/asm_amd64.s, util/asm_amd64.s).  On the TPU
-// build, device work goes through XLA/Pallas; the host-side preprocessing
+// assembly (ref: sequence/asm_amd64.s, util/asm_amd64.s).  Here device
+// work goes through XLA; the host-side preprocessing
 // that feeds it — ASCII -> 2-bit encoding, rolling k-mer extraction,
 // seed-table scans and fastq record indexing — lives here as portable
 // C++ that the compiler auto-vectorizes.  Exposed with C linkage for

@@ -191,23 +191,6 @@ def test_consensus_cost_prefers_truth():
     assert cost_truth < cost_wrong
 
 
-def test_pallas_band_kernel_matches_oracle():
-    """The Pallas band kernel (interpret mode on CPU) against the numpy
-    oracle."""
-    from downpore_tpu.ops.pallas_band import pallas_update_bands
-    rng = np.random.default_rng(21)
-    B, W = 37, 32
-    ds = rng.integers(0, 40, (B, W)).astype(np.int32)
-    poffs = rng.integers(0, 500, (B, W)).astype(np.int32)
-    poffs[rng.random((B, W)) < 0.25] = BAND_FULL
-    out, m = pallas_update_bands(np.asarray(ds), np.asarray(poffs), 300,
-                                 interpret=True)
-    exp_out, exp_m = update_offsets_np(ds.astype(np.uint16),
-                                       poffs.astype(np.uint16), 300)
-    assert np.array_equal(np.asarray(m), exp_m.astype(np.int32))
-    assert np.array_equal(np.asarray(out), exp_out.astype(np.int32))
-
-
 def test_device_beam_consensus():
     """The device beam engine (ops.dtw) recovers a noisy consensus with
     quality comparable to the host landmark engine."""
@@ -226,36 +209,6 @@ def test_device_beam_consensus():
         return set(s[i:i + kk] for i in range(len(s) - kk + 1))
     inter = len(ks(called) & ks(truth_s))
     assert inter / len(ks(truth_s)) > 0.75
-
-
-def test_pallas_chain_scan_matches_xla():
-    """Pallas chain DP (interpret mode) vs the XLA _chain_scan, both
-    variants, random anchor batches including padding lanes."""
-    import jax
-    from downpore_tpu.ops.chain import _chain_scan
-    from downpore_tpu.ops.pallas_chain import pallas_chain_scan
-
-    rng = np.random.default_rng(7)
-    P, A, k = 6, 128, 10
-    qp = np.sort(rng.integers(0, 400, (P, A)), axis=1).astype(np.int32)
-    tp = np.sort(rng.integers(0, 400, (P, A)), axis=1).astype(np.int32)
-    qi = np.argsort(np.argsort(qp, axis=1), axis=1).astype(np.int32)
-    tj = np.argsort(np.argsort(tp, axis=1), axis=1).astype(np.int32)
-    # perturb so qi/tj order and positions are not perfectly aligned
-    sw = rng.integers(0, A - 1, (P, 20))
-    for p in range(P):
-        for s in sw[p]:
-            tj[p, s], tj[p, s + 1] = tj[p, s + 1], tj[p, s]
-    valid = (rng.random((P, A)) < 0.85).astype(np.int32)
-    for variant in ("extend", "aligner"):
-        ref = jax.vmap(_chain_scan, in_axes=(0, 0, 0, 0, 0, None, None))(
-            qi, tj, qp, tp, valid.astype(bool), k, variant)
-        got = pallas_chain_scan(qi, tj, qp, tp, valid, k,
-                                variant=variant, interpret=True)
-        names = ["score", "cov_q", "cov_t", "s_qp", "s_tp", "bp"]
-        for name, r, g in zip(names, ref, got):
-            np.testing.assert_array_equal(
-                np.asarray(r), np.asarray(g), err_msg=f"{variant}:{name}")
 
 
 def test_device_beam_consensus_bulk():

@@ -6,7 +6,7 @@ engine (ops.dtw) re-expresses it as a fixed-width beam.  These tests bound
 their divergence on exactly the case families the landmark machinery
 exists for: homopolymer runs, drifting indel offsets, and noisy pileups
 where only anchor k-mers are trustworthy — the gate for making the device
-engine the default in `correct` (VERDICT round-1 item 4).
+engine the default in `correct`.
 """
 import numpy as np
 import pytest

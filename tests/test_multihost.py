@@ -75,7 +75,7 @@ def test_two_process_distributed(tmp_path):
     _run_two_procs(tmp_path, WORKER)
 
 
-# Production pipeline under jax.distributed (VERDICT r03 ask #7): a real
+# Production pipeline under jax.distributed: a real
 # map_batch — fused retrieval + chain DP + candidate walk — runs
 # data-parallel across 2 CPU processes (4 global devices) and must emit
 # byte-identical PAF strings to the single-process mapper in BOTH

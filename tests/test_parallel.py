@@ -64,8 +64,8 @@ def test_graft_dryrun_shapes():
 
 def test_kmer_occurrences_device_path(mesh8):
     """The PRODUCTION kmer_occurrences routes through the sharded
-    device histogram when given a multi-device mesh (VERDICT r04 ask
-    #8) — counts must equal the host bincount exactly."""
+    device histogram when given a multi-device mesh — counts must
+    equal the host bincount exactly."""
     import numpy as np
     from downpore_tpu.core import Sequence
     from downpore_tpu.utils import kmer_occurrences

@@ -1,4 +1,4 @@
-"""Adversarial realistic fixtures (VERDICT round-1 item #5): reads drawn
+"""Adversarial realistic fixtures: reads drawn
 with an ONT-like error model (~10% total error, homopolymer-biased
 deletions) from genomes with planted tandem repeats and low-complexity
 tracts — scored against planted truth, the reference's validation

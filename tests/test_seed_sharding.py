@@ -87,8 +87,8 @@ def _shard_elems(arr):
 
 
 def _assert_balanced(counts, tol=0.1):
-    """Every device's share within ~10% of the mean (VERDICT: a 90/10
-    split must fail, padding-equal splits pass)."""
+    """Every device's share within ~10% of the mean (a 90/10 split
+    must fail, padding-equal splits pass)."""
     assert len(counts) > 1
     mean = sum(counts) / len(counts)
     for c in counts:
